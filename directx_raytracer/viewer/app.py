@@ -1,0 +1,292 @@
+"""Viewer application — the DXRTApp / DXRTMainWindow analog.
+
+The reference is a Qt shell around an idle-timer render loop (DXRTApp.cpp:
+109-120) with WASD movement, mouse look, a shading-mode combo and an FPS
+status bar.  Headless hosts get the same control surface three ways:
+
+* ``render``   — one frame to PNG (scene path + camera/mode flags);
+* ``orbit``    — camera-path scripting: N frames orbiting the scene,
+  written as a PNG sequence (and an FPS/Mrays report);
+* ``interactive`` — live ANSI-terminal viewport with WASD/arrow controls,
+  per-second FPS line, mode switching, frame saving.
+
+All config is CLI flags (the reference hard-codes everything: scene path
+DXRTRenderer.cpp:245, 1920x1080 in four places — SURVEY.md §5 config row).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+import numpy as np
+
+from ..io import crtscene
+from ..ops.debug_shading import MODE_NAMES
+from ..render.renderer import Renderer, describe_devices
+from ..utils.image import write_png
+from .. import testscenes
+
+log = logging.getLogger("directx_raytracer")
+
+MOVE_SPEED = 10.0  # units/sec (DXRTApp.h:61)
+SENSITIVITY = 2.0  # degrees per look keypress
+SCROLL_SPEED = 0.5  # zoom per keypress (DXRTApp.h:63 scaled)
+
+
+def load_scene(path: str | None, builtin: str | None):
+    if builtin:
+        return getattr(testscenes, builtin)()
+    if path is None:
+        raise SystemExit("a scene file or --builtin is required")
+    return crtscene.load(path)
+
+
+def _build_renderer(args) -> Renderer:
+    scene = load_scene(args.scene, args.builtin)
+    base_dir = "." if args.scene is None else args.scene.rsplit("/", 1)[0] or "."
+    return Renderer(scene, width=args.width, height=args.height,
+                    base_dir=base_dir)
+
+
+def _frame(renderer: Renderer, args):
+    if args.whitted:
+        img, _ = renderer.render_whitted_frame(max_depth=args.depth, spp=args.spp)
+    else:
+        img = renderer.render_frame(mode=args.mode)
+    return renderer.to_u8(img)
+
+
+def _frame_device(renderer: Renderer, args):
+    """Dispatch one frame and return the DEVICE u8 array without syncing —
+    the interactive loop keeps a 1-frame pipeline (SURVEY hard part #2:
+    hiding the host<->device framebuffer transfer behind the next dispatch)."""
+    if args.whitted:
+        img, _ = renderer.render_whitted_frame(max_depth=args.depth, spp=args.spp)
+    else:
+        img = renderer.render_frame(mode=args.mode)
+    return renderer.to_u8_device(img)
+
+
+def cmd_render(args):
+    r = _build_renderer(args)
+    img = _frame(r, args)
+    write_png(args.output, img)
+    print(f"wrote {args.output} ({r.width}x{r.height}, "
+          f"{'whitted' if args.whitted else MODE_NAMES[args.mode]})")
+
+
+def cmd_orbit(args):
+    import contextlib
+
+    import jax
+
+    r = _build_renderer(args)
+    target = np.zeros(3, np.float32)
+    np.asarray(_frame_device(r, args))  # compile outside the timed loop
+    profile_cm = (jax.profiler.trace(args.profile) if args.profile
+                  else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with profile_cm:
+        # Frames stay ON DEVICE as u8 and dispatch asynchronously: without
+        # --output, the loop measures render throughput (one final sync),
+        # not host transfers.  With --output, only the 4x smaller u8 image
+        # crosses per frame.
+        for i in range(args.frames):
+            img = _frame_device(r, args)
+            if args.output:
+                write_png(args.output % i if "%" in args.output
+                          else f"{args.output}.{i:04d}.png", np.asarray(img))
+            r.camera.pan_around_target(360.0 / args.frames, target)
+        np.asarray(img)  # final sync
+    dt = time.perf_counter() - t0
+    rays = args.frames * r.width * r.height * (args.spp if args.whitted else 1)
+    print(f"{args.frames} frames in {dt:.2f}s -> {args.frames/dt:.1f} FPS, "
+          f"{rays/dt/1e6:.1f} Mrays/s")
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
+
+
+def cmd_interactive(args):
+    from . import tty
+
+    r = _build_renderer(args)
+    mode = args.mode
+    whitted = args.whitted
+    sys.stdout.write(tty.clear_screen())
+    last = time.perf_counter()
+    status = ""
+    pending = None  # device u8 frame in flight (1-frame display pipeline)
+    with tty.RawKeyboard(mouse=True) as kb:
+        while True:
+            now = time.perf_counter()
+            dt = min(now - last, 0.25)
+            last = now
+            had_input = False
+            while (key := kb.poll()) is not None:
+                had_input = True
+                if isinstance(key, tuple):
+                    # Mouse-look / wheel-zoom: DXRTViewportWidget.cpp:50-78
+                    # semantics (rotate(-yaw, -pitch); wheel up zooms in).
+                    # A text cell is ~2 pixels tall in half-block art.
+                    if key[0] == "mouse_drag":
+                        r.camera.rotate(-key[1] * SENSITIVITY,
+                                        -key[2] * 2 * SENSITIVITY)
+                    elif key[0] == "mouse_wheel":
+                        r.camera.zoom(-key[1] * SCROLL_SPEED)
+                    continue
+                if key in ("x", "esc"):
+                    sys.stdout.write("\n")
+                    return
+                elif key == "w":
+                    r.camera.move_forward(-MOVE_SPEED * dt * 4)
+                elif key == "s":
+                    r.camera.move_forward(MOVE_SPEED * dt * 4)
+                elif key == "a":
+                    r.camera.move_right(-MOVE_SPEED * dt * 4)
+                elif key == "d":
+                    r.camera.move_right(MOVE_SPEED * dt * 4)
+                elif key == "left":
+                    r.camera.rotate(-SENSITIVITY, 0.0)
+                elif key == "right":
+                    r.camera.rotate(SENSITIVITY, 0.0)
+                elif key == "up":
+                    r.camera.rotate(0.0, -SENSITIVITY)
+                elif key == "down":
+                    r.camera.rotate(0.0, SENSITIVITY)
+                elif key == "q":
+                    r.camera.zoom(SCROLL_SPEED)
+                elif key == "e":
+                    r.camera.zoom(-SCROLL_SPEED)
+                elif key == "g":
+                    whitted = not whitted
+                elif key and key.isdigit() and int(key) < len(MODE_NAMES):
+                    mode = int(key)
+                elif key == "p":
+                    args.mode, args.whitted = mode, whitted
+                    write_png("frame.png", _frame(r, args))
+                    status = "saved frame.png"
+            args.mode, args.whitted = mode, whitted
+            # 1-frame pipeline: dispatch frame n+1 (async under XLA), then
+            # transfer + draw frame n while the device renders — hides the
+            # host transfer behind compute.  Input flushes the pipeline so a
+            # mode/camera change shows immediately instead of displaying one
+            # stale frame first.
+            if had_input:
+                pending = None
+            new_pending = _frame_device(r, args)
+            img = np.asarray(pending if pending is not None else new_pending)
+            pending = new_pending
+            if r.stats.tick(0):
+                pass
+            sys.stdout.write(tty.home_cursor())
+            sys.stdout.write(tty.frame_to_ansi(img))
+            label = "whitted" if whitted else MODE_NAMES[mode]
+            sys.stdout.write(
+                f"\n{label} | {r.stats.fps:5.1f} FPS {r.stats.mrays:7.1f} Mrays/s"
+                f" | wasd move, arrows/drag look, q/e/wheel zoom, 0-6 mode,"
+                f" g whitted, p save, x quit {status}\x1b[K"
+            )
+            sys.stdout.flush()
+
+
+def cmd_pathtrace(args):
+    from ..render.pathtrace import PathTracer
+
+    r = _build_renderer(args)
+    pt = PathTracer(r.dscene, r.width, r.height, max_depth=args.depth,
+                    intersect_fn=r.intersect_fn,
+                    occluder_factory=r.occluder_factory, seed=args.seed)
+    if args.resume:
+        pt.load_state(args.resume)
+        print(f"resumed at {pt.n_samples} spp")
+    pos, rot = r.camera.snapshot()
+    pt.step(pos, rot, n=1)  # compile
+    t0 = time.perf_counter()
+    done = pt.n_samples
+    while pt.n_samples < args.samples:
+        pt.step(pos, rot, n=min(args.checkpoint_every,
+                                args.samples - pt.n_samples))
+        if args.state:
+            pt.save_state(args.state)
+        el = time.perf_counter() - t0
+        log.info("%d/%d spp (%.2f s/spp)", pt.n_samples, args.samples,
+                 el / max(pt.n_samples - done, 1))
+    img = np.asarray(pt.image())
+    # simple tonemap: clamp + gamma 2.2 for the PNG
+    img = np.clip(img, 0.0, 1.0) ** (1.0 / 2.2) if args.gamma else img
+    write_png(args.output, img)
+    print(f"wrote {args.output} at {pt.n_samples} spp")
+
+
+def cmd_devices(args):
+    print(describe_devices())
+
+
+def main(argv=None):
+    from ..utils.compile_cache import enable_compile_cache
+
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    enable_compile_cache()
+    p = argparse.ArgumentParser(
+        prog="python -m directx_raytracer.viewer",
+        description="JAX ray tracing viewer (DirectX-RayTracer capability surface)",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp, scene=True):
+        if scene:
+            sp.add_argument("scene", nargs="?", help=".crtscene file")
+            sp.add_argument("--builtin", help="test scene builder name "
+                            "(cornell_box, bench_scene, single_triangle, ...)")
+        sp.add_argument("--width", type=int, default=None)
+        sp.add_argument("--height", type=int, default=None)
+        sp.add_argument("--mode", type=int, default=0,
+                        help="debug shading mode 0-6 (" + ", ".join(
+                            f"{i}={n}" for i, n in enumerate(MODE_NAMES)) + ")")
+        sp.add_argument("--whitted", action="store_true",
+                        help="full Whitted shading (materials/lights/shadows)")
+        sp.add_argument("--depth", type=int, default=5, help="whitted max depth")
+        sp.add_argument("--spp", type=int, default=1, metavar="N",
+                        help="samples per pixel (1 = reference pixel center, "
+                        "4 = RGSS, other N = deterministic Hammersley set)")
+
+    sp = sub.add_parser("render", help="render one frame to PNG")
+    common(sp)
+    sp.add_argument("--output", "-o", default="frame.png")
+    sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("orbit", help="render an orbiting camera path")
+    common(sp)
+    sp.add_argument("--frames", type=int, default=24)
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a jax.profiler trace of the frame loop")
+    sp.add_argument("--output", "-o", default=None,
+                    help="PNG path or printf pattern (omit to benchmark only)")
+    sp.set_defaults(fn=cmd_orbit)
+
+    sp = sub.add_parser("interactive", help="live ANSI-terminal viewport")
+    common(sp)
+    sp.set_defaults(fn=cmd_interactive)
+
+    sp = sub.add_parser("pathtrace", help="progressive path-traced render")
+    common(sp)
+    sp.add_argument("--samples", type=int, default=64, help="target spp")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--output", "-o", default="pt.png")
+    sp.add_argument("--state", default=None,
+                    help="accumulation checkpoint path (.npz), saved per chunk")
+    sp.add_argument("--resume", default=None, help="checkpoint to resume from")
+    sp.add_argument("--checkpoint-every", type=int, default=16)
+    sp.add_argument("--gamma", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="gamma-2.2 encode the PNG (--no-gamma = linear)")
+    sp.set_defaults(fn=cmd_pathtrace)
+
+    sp = sub.add_parser("devices", help="list accelerator devices")
+    sp.set_defaults(fn=cmd_devices)
+
+    args = p.parse_args(argv)
+    return args.fn(args)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.models.camera import Camera
-from directx_raytracer_tpu.utils import vecmath as vm
+from directx_raytracer.models.camera import Camera
+from directx_raytracer.utils import vecmath as vm
 
 
 def test_default_orientation():

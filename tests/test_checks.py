@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from directx_raytracer_tpu import testscenes
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.render import render_whitted, render_whitted_checked
-from directx_raytracer_tpu.utils import checks
+from directx_raytracer import testscenes
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.render import render_whitted, render_whitted_checked
+from directx_raytracer.utils import checks
 
 
 @pytest.fixture(autouse=True)
@@ -60,7 +60,7 @@ def test_seeded_nan_is_caught(small_scene):
 
 
 def test_pathtracer_checked_step(small_scene):
-    from directx_raytracer_tpu.render.pathtrace import PathTracer
+    from directx_raytracer.render.pathtrace import PathTracer
 
     scene, d = small_scene
     pt = PathTracer(d, 48, 32, max_depth=2)

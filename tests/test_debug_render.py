@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from directx_raytracer_tpu import testscenes
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.ops.debug_shading import MISS_COLOR, NUM_MODES
-from directx_raytracer_tpu.render.debug import render_debug
+from directx_raytracer import testscenes
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.ops.debug_shading import MISS_COLOR, NUM_MODES
+from directx_raytracer.render.debug import render_debug
 
 
 def _render(scene, mode, w=64, h=48):

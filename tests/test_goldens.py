@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.io import crtscene
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.render import render_debug, render_whitted
-from directx_raytracer_tpu.utils.image import to_u8
+from directx_raytracer.io import crtscene
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.render import render_debug, render_whitted
+from directx_raytracer.utils.image import to_u8
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "dragon_192x108.npz")
 W, H = 192, 108

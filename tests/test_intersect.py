@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from directx_raytracer_tpu.models.mesh import Mesh
-from directx_raytracer_tpu.models.scene import build_geometry, _woop_transforms
-from directx_raytracer_tpu.ops import intersect as isect
+from directx_raytracer.models.mesh import Mesh
+from directx_raytracer.models.scene import build_geometry, _woop_transforms
+from directx_raytracer.ops import intersect as isect
 
 
 def _random_geometry(n_tris, seed=0, spread=5.0):

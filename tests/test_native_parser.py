@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.io import crtscene
-from directx_raytracer_tpu.native import build, crtscene_native
+from directx_raytracer.io import crtscene
+from directx_raytracer.native import build, crtscene_native
 
 
 def _native_available():
@@ -123,7 +123,7 @@ def test_parse_error_reported(tmp_path):
 
 
 def test_native_vertex_normals_match_numpy():
-    from directx_raytracer_tpu.models.mesh import vertex_normals
+    from directx_raytracer.models.mesh import vertex_normals
 
     rng = np.random.default_rng(0)
     verts = rng.normal(size=(50, 3)).astype(np.float32)
@@ -136,7 +136,7 @@ def test_native_vertex_normals_match_numpy():
 
 def test_unicode_escape_parity(tmp_path):
     """Non-ASCII names: \\uXXXX escapes (incl. surrogate pairs) and raw
-    UTF-8 must decode identically in both parsers (VERDICT r2 weak #8)."""
+    UTF-8 must decode identically in both parsers."""
     doc = {
         "settings": {"background_color": [0, 0, 0],
                      "image_settings": {"width": 8, "height": 8}},

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.io import crtscene
-from directx_raytracer_tpu.models.material import MaterialType
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.models.texture import TextureType
+from directx_raytracer.io import crtscene
+from directx_raytracer.models.material import MaterialType
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.models.texture import TextureType
 
 
 def test_dragon_roundtrip(dragon_path):
@@ -173,7 +173,7 @@ def test_blinn_phong_extension_keys_roundtrip():
 
 
 def test_shininess_survives_roundtrip_without_specular():
-    """ADVICE r2 #4: a zero-specular material with customized shininess
+    """A zero-specular material with customized shininess
     must keep the shininess through dumps/loads (keys are independent)."""
     scene = crtscene.loads(
         '{"materials": [{"type": "diffuse", "albedo": [0.5, 0.5, 0.5], '

@@ -4,10 +4,10 @@ smoke checks, checkpoint round-trip."""
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu import testscenes
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.render.pathtrace import PathTracer
-from directx_raytracer_tpu.render.whitted import render_whitted
+from directx_raytracer import testscenes
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.render.pathtrace import PathTracer
+from directx_raytracer.render.whitted import render_whitted
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def test_checkpoint_roundtrip(tmp_path, cornell):
 def test_glass_scene_is_finite():
     scene = testscenes.cornell_box(32, 24)
     # make the tall block glass
-    from directx_raytracer_tpu.models.material import Material, MaterialType
+    from directx_raytracer.models.material import Material, MaterialType
 
     scene.materials[0] = Material(
         type=MaterialType.REFRACTIVE, ior=1.5,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from directx_raytracer_tpu.ops.rays import generate_rays
-from directx_raytracer_tpu.utils import vecmath as vm
+from directx_raytracer.ops.rays import generate_rays
+from directx_raytracer.utils import vecmath as vm
 
 
 def test_center_pixel_looks_down_minus_z():
@@ -54,28 +54,29 @@ def test_directions_unit_length():
 
 
 def test_pick_schedule_production_shapes():
-    """r5 primary schedule: square-ish tiles with matching kernel chunks
-    (24x32/768 measured fastest at 1080p; see TPU_RUNS_r5.md sweeps)."""
-    from directx_raytracer_tpu.ops.rays import pick_schedule, pick_tile
+    """Primary schedule: 8x32 pixel tiles (256 rays, one kernel tile) where
+    they divide the frame; otherwise the divisibility search shrinks them."""
+    from directx_raytracer.bvh.pallas_intersect import TILE_R
+    from directx_raytracer.ops.rays import pick_tile
 
-    assert pick_schedule(1080, 1920) == ((24, 32), 768)
-    assert pick_schedule(360, 640) == ((24, 32), 768)
-    # 108 rows: 24/20/16 do not divide, 12 does.
-    assert pick_schedule(108, 192) == ((12, 32), 384)
-    # Odd sizes fall back to pick_tile's divisibility search + 256 chunks.
-    tile, tile_r = pick_schedule(47, 100)
-    assert tile == pick_tile(47, 100) and tile_r == 256
+    assert pick_tile(1080, 1920) == (8, 32)
+    assert 8 * 32 == TILE_R
+    assert pick_tile(360, 640) == (8, 32)
+    # 270 rows: 8 does not divide, 6 does.
+    assert pick_tile(270, 480) == (6, 32)
+    # Degenerate tilings buy nothing.
+    assert pick_tile(7, 13) is None
 
 
 def test_pick_schedule_tile_covers_rows():
-    """Every preferred shape divides the frame it is returned for (the
+    """Every returned tile divides the frame it is returned for (the
     renderers reshape (rows*W) into whole tiles)."""
-    from directx_raytracer_tpu.ops.rays import pick_schedule
+    from directx_raytracer.ops.rays import pick_tile
 
     for rows, width in ((1080, 1920), (540, 960), (270, 480), (108, 192),
-                        (360, 640), (300, 400)):
-        tile, tile_r = pick_schedule(rows, width)
+                        (360, 640), (300, 400), (47, 100)):
+        tile = pick_tile(rows, width)
         if tile is not None:
             th, tw = tile
             assert rows % th == 0 and width % tw == 0
-            assert th * tw == tile_r or tile_r == 256
+            assert th <= 8 and tw <= 32

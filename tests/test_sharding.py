@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu import testscenes
-from directx_raytracer_tpu.models.scene import build_device_scene
-from directx_raytracer_tpu.parallel import make_mesh, render_whitted_multichip
-from directx_raytracer_tpu.render import render_whitted
+from directx_raytracer import testscenes
+from directx_raytracer.models.scene import build_device_scene
+from directx_raytracer.parallel import make_mesh, render_whitted_multichip
+from directx_raytracer.render import render_whitted
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +49,7 @@ def test_tile_x_sample_sharding_matches_single_chip(cornell):
 
 def test_indivisible_height_pads(cornell):
     """47 rows on an 8-chip tile axis: stripes pad to ceil(47/8)=6 rows and
-    the surplus below the frustum is cropped (VERDICT r1 weak #6 — 1080 is
+    the surplus below the frustum is cropped (1080 is
     not divisible by 16/32-chip meshes)."""
     scene, d = cornell
     mesh = make_mesh(n_tiles=8)
@@ -81,7 +81,7 @@ def test_indivisible_spp_pads(cornell):
 
 def test_spp16_sample_axis_8(cornell):
     """Arbitrary spp (Hammersley set) scales the sample mesh axis past 4
-    (VERDICT r1 next-step #5: spp=16 renders, sharding with n_samples=8)."""
+    (spp=16 renders, sharding with n_samples=8)."""
     scene, d = cornell
     mesh = make_mesh(n_tiles=1, n_samples=8)
     img, stats = render_whitted_multichip(
@@ -94,8 +94,8 @@ def test_spp16_sample_axis_8(cornell):
 
 def test_pathtrace_multichip_converges_like_single_chip():
     import jax
-    from directx_raytracer_tpu.parallel import pathtrace_multichip, untile_multichip
-    from directx_raytracer_tpu.render.pathtrace import PathTracer
+    from directx_raytracer.parallel import pathtrace_multichip, untile_multichip
+    from directx_raytracer.render.pathtrace import PathTracer
 
     scene = testscenes.cornell_box(64, 48, light_intensity=60.0)
     d = build_device_scene(scene)
@@ -130,7 +130,7 @@ class TestMultihost:
     no cluster on this rig."""
 
     def test_global_mesh_shape(self):
-        from directx_raytracer_tpu.parallel import global_mesh_shape
+        from directx_raytracer.parallel import global_mesh_shape
 
         assert global_mesh_shape(8, 1) == (8, 1)
         assert global_mesh_shape(8, 4) == (2, 4)
@@ -140,13 +140,13 @@ class TestMultihost:
             global_mesh_shape(0)
 
     def test_make_global_mesh_local(self):
-        from directx_raytracer_tpu.parallel import make_global_mesh
+        from directx_raytracer.parallel import make_global_mesh
 
         mesh = make_global_mesh(n_samples=2)
         assert mesh.axis_names == ("tiles", "samples")
         assert mesh.shape["tiles"] * mesh.shape["samples"] == jax.device_count()
 
     def test_single_process_init_noop(self):
-        from directx_raytracer_tpu.parallel import init_distributed
+        from directx_raytracer.parallel import init_distributed
 
         assert init_distributed() == 1

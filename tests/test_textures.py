@@ -4,13 +4,13 @@ Whitted pipeline (parse-level coverage lives in test_parser)."""
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.models.camera import Camera
-from directx_raytracer_tpu.models.light import Light
-from directx_raytracer_tpu.models.material import Material, MaterialType
-from directx_raytracer_tpu.models.mesh import Mesh
-from directx_raytracer_tpu.models.scene import Scene, SceneSettings, build_device_scene
-from directx_raytracer_tpu.models.texture import Texture, TextureType
-from directx_raytracer_tpu.render.whitted import render_whitted
+from directx_raytracer.models.camera import Camera
+from directx_raytracer.models.light import Light
+from directx_raytracer.models.material import Material, MaterialType
+from directx_raytracer.models.mesh import Mesh
+from directx_raytracer.models.scene import Scene, SceneSettings, build_device_scene
+from directx_raytracer.models.texture import Texture, TextureType
+from directx_raytracer.render.whitted import render_whitted
 
 FOUR_PI = 4.0 * np.pi
 

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from directx_raytracer_tpu.models.light import Light
-from directx_raytracer_tpu.models.material import Material, MaterialType
-from directx_raytracer_tpu.models.mesh import Mesh
-from directx_raytracer_tpu.models.scene import Scene, SceneSettings, build_device_scene
-from directx_raytracer_tpu.models.camera import Camera
-from directx_raytracer_tpu.render.whitted import render_whitted
-from directx_raytracer_tpu import testscenes
+from directx_raytracer.models.light import Light
+from directx_raytracer.models.material import Material, MaterialType
+from directx_raytracer.models.mesh import Mesh
+from directx_raytracer.models.scene import Scene, SceneSettings, build_device_scene
+from directx_raytracer.models.camera import Camera
+from directx_raytracer.render.whitted import render_whitted
+from directx_raytracer import testscenes
 
 FOUR_PI = 4.0 * np.pi
 
@@ -207,18 +207,18 @@ class TestCornell:
 
 
 class TestSppOffsets:
-    """Arbitrary-spp offset sets (VERDICT r1 next-step #5)."""
+    """Arbitrary-spp offset sets."""
 
     def test_reference_cases_unchanged(self):
-        from directx_raytracer_tpu.render.whitted import spp_offsets
-        from directx_raytracer_tpu.ops.rays import RGSS_OFFSETS
+        from directx_raytracer.render.whitted import spp_offsets
+        from directx_raytracer.ops.rays import RGSS_OFFSETS
 
         assert spp_offsets(1) == ((0.5, 0.5),)
         assert spp_offsets(4) == RGSS_OFFSETS
 
     @pytest.mark.parametrize("spp", [2, 3, 8, 16, 64])
     def test_hammersley_properties(self, spp):
-        from directx_raytracer_tpu.render.whitted import spp_offsets
+        from directx_raytracer.render.whitted import spp_offsets
 
         offs = np.asarray(spp_offsets(spp))
         assert offs.shape == (spp, 2)
@@ -229,7 +229,7 @@ class TestSppOffsets:
         assert sorted(cols.tolist()) == list(range(spp))
 
     def test_spp_zero_raises(self):
-        from directx_raytracer_tpu.render.whitted import spp_offsets
+        from directx_raytracer.render.whitted import spp_offsets
 
         with pytest.raises(ValueError):
             spp_offsets(0)
@@ -247,11 +247,11 @@ class TestSppOffsets:
 
 
 class TestBlinnPhong:
-    """Blinn-Phong specular extension (BASELINE.json config 3)."""
+    """Blinn-Phong specular extension (BASELINE config 3)."""
 
     def test_analytic_highlight(self):
-        from directx_raytracer_tpu.models.scene import LightTable
-        from directx_raytracer_tpu.ops.shading import FOUR_PI, direct_lighting
+        from directx_raytracer.models.scene import LightTable
+        from directx_raytracer.ops.shading import FOUR_PI, direct_lighting
 
         lights = LightTable(
             position=jnp.array([[0.0, 0.0, 2.0]], jnp.float32),
@@ -269,8 +269,8 @@ class TestBlinnPhong:
         np.testing.assert_allclose(float(spec[0, 0]), expect, rtol=1e-5)
 
     def test_off_axis_follows_cos_power(self):
-        from directx_raytracer_tpu.models.scene import LightTable
-        from directx_raytracer_tpu.ops.shading import FOUR_PI, direct_lighting
+        from directx_raytracer.models.scene import LightTable
+        from directx_raytracer.ops.shading import FOUR_PI, direct_lighting
 
         # Light 45 deg off normal, viewer mirrored: half vector == normal
         # after normalize, so the highlight is maximal; tilting the viewer
@@ -334,13 +334,13 @@ class TestConstColorConfig:
 
 
 def test_backfacing_shadow_disarm_is_exact():
-    """cos>0 shadow disarm (r5): a surface facing AWAY from every light
+    """cos>0 shadow disarm: a surface facing AWAY from every light
     contributes zero diffuse AND specular with or without an occluder, so
     disarming its shadow ray (t_max=0) cannot change the image."""
     import jax.numpy as jnp
 
-    from directx_raytracer_tpu.models import LightTable
-    from directx_raytracer_tpu.ops.shading import direct_lighting
+    from directx_raytracer.models import LightTable
+    from directx_raytracer.ops.shading import direct_lighting
 
     lights = LightTable(
         position=jnp.array([[0.0, 10.0, 0.0]], jnp.float32),
